@@ -1,4 +1,4 @@
-// Native BVH builder for drmlt_mitsuba_tpu.
+// Native BVH builder for drmlt_mitsuba.
 //
 // Capability match for the reference's multithreaded SAH kd-tree build
 // (include/mitsuba/render/gkdtree.h:706,958 — min-max binning + SAH):

@@ -12,7 +12,7 @@
 //     /root/reference/src/integrators/drmlt/drmlt_proc.cpp:518-770) with
 //     branchy scalar control flow, multithreaded over chains.
 //
-// Scene input: flat binary dump written by drmlt_mitsuba_tpu/utils/
+// Scene input: flat binary dump written by drmlt_mitsuba/utils/
 // scene_dump.py.  PSS layout matches integrators/layout.py (the replay
 // contract): 4 sensor dims + 9 dims/bounce.
 //

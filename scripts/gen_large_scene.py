@@ -36,7 +36,7 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
+    from drmlt_mitsuba.scene.builders import cornell_box
 
     sc = cornell_box(256, 256, tessellate=24)
     v0 = np.asarray(sc.tris.v0)

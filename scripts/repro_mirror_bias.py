@@ -12,11 +12,11 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.bidir import BDPTConfig, trace_bdpt
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators.bidir import BDPTConfig, trace_bdpt
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 W = H = 16
 scene = cornell_box(W, H, tall_box_material="mirror")

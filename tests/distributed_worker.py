@@ -4,7 +4,7 @@ Usage: python distributed_worker.py <rank> <nproc> <port> <out.npz>
 
 Each process owns ONE cpu device; jax.distributed.initialize stitches
 them into a global 2-device runtime, and the (host, chain) mesh spans
-both processes — the same program a real 2-host TPU fleet would run
+both processes — the same program a real 2-host fleet would run
 (the SPMD replacement for the reference's remote scheduler,
 src/libcore/sched_remote.cpp).
 """
@@ -28,17 +28,17 @@ jax.distributed.initialize(
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from drmlt_mitsuba_tpu.integrators.drmlt import (  # noqa: E402
+from drmlt_mitsuba.integrators.drmlt import (  # noqa: E402
     DRMLTConfig, drmlt_step,
 )
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig  # noqa: E402
-from drmlt_mitsuba_tpu.integrators.path import trace_paths  # noqa: E402
-from drmlt_mitsuba_tpu.parallel.distributed import (  # noqa: E402
+from drmlt_mitsuba.integrators.layout import PathConfig  # noqa: E402
+from drmlt_mitsuba.integrators.path import trace_paths  # noqa: E402
+from drmlt_mitsuba.parallel.distributed import (  # noqa: E402
     render_mcmc_sharded,
 )
-from drmlt_mitsuba_tpu.parallel.mesh import make_mesh  # noqa: E402
-from drmlt_mitsuba_tpu.render import film as filmlib  # noqa: E402
-from drmlt_mitsuba_tpu.scene.builders import cornell_box  # noqa: E402
+from drmlt_mitsuba.parallel.mesh import make_mesh  # noqa: E402
+from drmlt_mitsuba.render import film as filmlib  # noqa: E402
+from drmlt_mitsuba.scene.builders import cornell_box  # noqa: E402
 
 assert len(jax.devices()) == nproc, jax.devices()
 

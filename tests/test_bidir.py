@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.bidir import (
+from drmlt_mitsuba.integrators.bidir import (
     BDPTConfig, trace_bdpt, trace_mmlt,
 )
-from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig, render_drmlt
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.mmlt import make_mmlt_trace, mmlt_masks
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators.drmlt import DRMLTConfig, render_drmlt
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.mmlt import make_mmlt_trace, mmlt_masks
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 W = H = 16
 
@@ -140,7 +140,7 @@ class TestFixEmitterPath:
         """fixEmitterPath: stage 2 freezes the emitter dims except for
         light-tracing chains; the render stays consistent with PT."""
         scene, fc, _, _, pt3 = refs
-        from drmlt_mitsuba_tpu.integrators.mmlt import (
+        from drmlt_mitsuba.integrators.mmlt import (
             mmlt_emitter_mask, mmlt_lt_mask_fn,
         )
 
@@ -186,12 +186,11 @@ def test_bdpt_textured_scene_matches_pt(tmp_path):
     oracle failed."""
     import numpy as np
 
-    from drmlt_mitsuba_tpu.integrators.bidir import BDPTConfig, trace_bdpt
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import render_pt
-    from drmlt_mitsuba_tpu.render import film as filmlib
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
-    from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+    from drmlt_mitsuba.integrators.bidir import BDPTConfig, trace_bdpt
+    from drmlt_mitsuba.integrators.layout import PathConfig
+    from drmlt_mitsuba.integrators.path import render_pt
+    from drmlt_mitsuba.render import film as filmlib
+    from drmlt_mitsuba.scene.xml import load_scene_xml
 
     W = H = 16
     xml = f"""<scene version="0.6.0">
@@ -231,7 +230,6 @@ def test_bdpt_textured_scene_matches_pt(tmp_path):
     xf = tmp_path / "tex.xml"
     xf.write_text(xml)
     scene, _ = load_scene_xml(str(xf))
-    scene = prepare_scene(scene)
     assert scene.textures is not None
 
     fc = filmlib.make_film_config(W, H, "box")

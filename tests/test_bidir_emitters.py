@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.bidir import (
+from drmlt_mitsuba.integrators.bidir import (
     BDPTConfig, trace_bdpt, trace_mmlt,
 )
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene import types as st
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene import types as st
+from drmlt_mitsuba.scene.builders import cornell_box
 
 W = H = 16
 

@@ -11,14 +11,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.bidir import (
+from drmlt_mitsuba.integrators.bidir import (
     BDPTConfig, trace_bdpt, trace_mmlt, trace_mmlt_dense,
 )
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.render.medium import make_medium
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.render.medium import make_medium
+from drmlt_mitsuba.scene.builders import cornell_box
 
 W = H = 16
 
@@ -91,7 +91,7 @@ def test_bdpt_rayleigh_fog_matches_volpath_pt():
     """BDPT in a Rayleigh-phase fog agrees with unidirectional volpath —
     the generalized phase dispatch (eval/pdf/sample + reverse pdfs) in
     the bidirectional layer."""
-    from drmlt_mitsuba_tpu.render.medium import PHASE_RAYLEIGH
+    from drmlt_mitsuba.render.medium import PHASE_RAYLEIGH
 
     scene = cornell_box(W, H).replace(
         medium=make_medium((0.0014,) * 3, (0.8,) * 3,
@@ -123,7 +123,7 @@ def test_bdpt_rayleigh_fog_matches_volpath_pt():
 
 def test_bdpt_mixture_fog_matches_volpath_pt():
     """Same consistency oracle with a 2-component mixturephase."""
-    from drmlt_mitsuba_tpu.render.medium import PHASE_MIXTURE
+    from drmlt_mitsuba.render.medium import PHASE_MIXTURE
 
     scene = cornell_box(W, H).replace(
         medium=make_medium((0.0014,) * 3, (0.8,) * 3,
@@ -157,7 +157,7 @@ def test_bdpt_mixture_fog_matches_volpath_pt():
 
 def _hetero_fog_scene(g=0.0):
     """Cornell filled with a smooth low-frequency density grid."""
-    from drmlt_mitsuba_tpu.render.medium import make_hetero_medium
+    from drmlt_mitsuba.render.medium import make_hetero_medium
 
     scene = cornell_box(W, H)
     z, y, x = np.meshgrid(np.linspace(0, 1, 9), np.linspace(0, 1, 9),
@@ -226,9 +226,8 @@ def test_collimated_beam_through_fog():
     position+direction Dirac beam is invisible to direct sampling and
     reaches the film only through light-subpath strategies; in fog the
     BDPT image shows a localized bright beam line."""
-    import drmlt_mitsuba_tpu.scene.types as st
-    from drmlt_mitsuba_tpu.render.medium import make_medium
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
+    import drmlt_mitsuba.scene.types as st
+    from drmlt_mitsuba.render.medium import make_medium
 
     scene = cornell_box(W, H)
     nem = int(np.asarray(scene.tris.emitter_id).max()) + 1
@@ -237,9 +236,9 @@ def test_collimated_beam_through_fog():
         collimated=[(np.array([50.0, 273.0, 279.0]),
                      np.array([1.0, 0.0, 0.0]),
                      np.array([2e5, 2e5, 2e5]))])
-    scene = prepare_scene(scene.replace(
+    scene = scene.replace(
         medium=make_medium((0.004,) * 3, (0.9,) * 3, 0.0),
-        emitters=em))
+        emitters=em)
     bcfg = BDPTConfig(max_depth=3, medium=True)
     key = jax.random.PRNGKey(0)
     fc = filmlib.make_film_config(W, H, "box")

@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.mcmc import ChainState
-from drmlt_mitsuba_tpu.parallel.checkpoint import (
+from drmlt_mitsuba.integrators.mcmc import ChainState
+from drmlt_mitsuba.parallel.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
 
@@ -30,10 +30,10 @@ def test_roundtrip(tmp_path):
 def test_point_light_nee():
     """Delta emitters feed NEE with MIS weight 1: a point light above a
     floor matches the inverse-square analytic value."""
-    import drmlt_mitsuba_tpu.scene.types as st
-    from drmlt_mitsuba_tpu.core import transform
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
+    import drmlt_mitsuba.scene.types as st
+    from drmlt_mitsuba.core import transform
+    from drmlt_mitsuba.integrators.layout import PathConfig
+    from drmlt_mitsuba.integrators.path import trace_paths
 
     verts = np.asarray(
         [[-50, 0, -50], [50, 0, -50], [50, 0, 50], [-50, 0, 50]], np.float32

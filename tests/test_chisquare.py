@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.core import warp
-from drmlt_mitsuba_tpu.core.chisquare import chi2_test
-from drmlt_mitsuba_tpu.render.bsdf import eval_bsdf, sample_bsdf
-from drmlt_mitsuba_tpu.render.medium import hg_phase, sample_hg
-from drmlt_mitsuba_tpu.scene import types as st
+from drmlt_mitsuba.core import warp
+from drmlt_mitsuba.core.chisquare import chi2_test
+from drmlt_mitsuba.render.bsdf import eval_bsdf, sample_bsdf
+from drmlt_mitsuba.render.medium import hg_phase, sample_hg
+from drmlt_mitsuba.scene import types as st
 
 N = 400_000
 
@@ -110,7 +110,7 @@ class TestBsdfChi2:
 
 class TestPhaseChi2:
     def test_rayleigh(self):
-        from drmlt_mitsuba_tpu.render.medium import (
+        from drmlt_mitsuba.render.medium import (
             rayleigh_phase, sample_rayleigh,
         )
 

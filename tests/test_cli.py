@@ -4,9 +4,9 @@ import os
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.utils.cli import main as cli_main
-from drmlt_mitsuba_tpu.utils.exr import read_exr
-from drmlt_mitsuba_tpu.utils.heatmap import stages_heatmap
+from drmlt_mitsuba.utils.cli import main as cli_main
+from drmlt_mitsuba.utils.exr import read_exr
+from drmlt_mitsuba.utils.heatmap import stages_heatmap
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 SCENE = os.path.join(DATA, "cornell.xml")
@@ -78,7 +78,7 @@ def test_cli_full_stack_volpath_vs_drmlt(tmp_path):
     """End-to-end through the CLI: sunsky envmap + bounded heterogeneous
     fog (gridvolume .vol) + hk slab + difftrans spheres; the volpath and
     DRMLT integrators must agree on the same scene."""
-    from drmlt_mitsuba_tpu.scene.xml import write_vol
+    from drmlt_mitsuba.scene.xml import write_vol
 
     write_vol(str(tmp_path / "fog.vol"), np.ones((4, 4, 4), np.float32),
               [-8, -1, -8], [8, 7, 8])
@@ -151,18 +151,16 @@ def test_large_xml_scene():
     import jax
     import numpy as np
 
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
-    from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+    from drmlt_mitsuba.integrators.layout import PathConfig
+    from drmlt_mitsuba.integrators.path import trace_paths
+    from drmlt_mitsuba.scene.builders import cornell_box
+    from drmlt_mitsuba.scene.xml import load_scene_xml
 
     path = os.path.join(os.path.dirname(__file__), "data", "large",
                         "cornell_large.xml")
     scene, settings = load_scene_xml(path)
     assert scene.tris.v0.shape[0] > 15000
-    scene = prepare_scene(scene)
-    ref = prepare_scene(cornell_box(256, 256, tessellate=24))
+    ref = cornell_box(256, 256, tessellate=24)
     cfg = PathConfig(max_depth=3, rr_depth=100)
     u = jax.random.uniform(jax.random.PRNGKey(0), (512, cfg.n_dims))
     a = np.asarray(trace_paths(scene, cfg, u).lum)

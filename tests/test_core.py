@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.core import frame, math as mm, rng, warp
+from drmlt_mitsuba.core import frame, math as mm, rng, warp
 
 
 def keys(n=1, seed=0):
@@ -123,13 +123,13 @@ class TestMis:
 
 class TestQuadSpline:
     def test_gauss_legendre(self):
-        from drmlt_mitsuba_tpu.core.quad import integrate
+        from drmlt_mitsuba.core.quad import integrate
 
         v = float(integrate(lambda x: jnp.sin(x), 0.0, np.pi, 32))
         np.testing.assert_allclose(v, 2.0, atol=1e-5)
 
     def test_gauss_lobatto(self):
-        from drmlt_mitsuba_tpu.core.quad import gauss_lobatto
+        from drmlt_mitsuba.core.quad import gauss_lobatto
 
         x, w = gauss_lobatto(6)
         np.testing.assert_allclose(float(jnp.sum(w)), 2.0, atol=1e-5)
@@ -138,7 +138,7 @@ class TestQuadSpline:
         np.testing.assert_allclose(v, 2.0, atol=1e-5)
 
     def test_catmull_rom(self):
-        from drmlt_mitsuba_tpu.core.quad import catmull_rom
+        from drmlt_mitsuba.core.quad import catmull_rom
 
         xs = jnp.linspace(0, 1, 11)
         ys = xs ** 2
@@ -148,7 +148,7 @@ class TestQuadSpline:
 
 class TestVmf:
     def test_chi2(self):
-        from drmlt_mitsuba_tpu.core.chisquare import chi2_test
+        from drmlt_mitsuba.core.chisquare import chi2_test
 
         for kappa in [1.0, 10.0]:
             r = chi2_test(
@@ -164,7 +164,7 @@ class TestVmf:
 class TestSh:
     def test_orthonormality(self):
         """MC estimate of <Y_i, Y_j> over the sphere is the identity."""
-        from drmlt_mitsuba_tpu.core.sh import N_COEFFS, eval_sh
+        from drmlt_mitsuba.core.sh import N_COEFFS, eval_sh
 
         u = jax.random.uniform(jax.random.PRNGKey(0), (400_000, 2))
         d = warp.square_to_uniform_sphere(u)
@@ -175,7 +175,7 @@ class TestSh:
 
     def test_project_reconstruct_lowpass(self):
         """A band-limited function (itself an SH expansion) round-trips."""
-        from drmlt_mitsuba_tpu.core.sh import project, reconstruct
+        from drmlt_mitsuba.core.sh import project, reconstruct
 
         rng = np.random.RandomState(3)
         c_true = jnp.asarray(rng.randn(16).astype(np.float32))
@@ -189,7 +189,7 @@ class TestSh:
 
 class TestBrent:
     def test_scalar_roots(self):
-        from drmlt_mitsuba_tpu.core.quad import brent
+        from drmlt_mitsuba.core.quad import brent
 
         r = brent(lambda x: x ** 3 - 2 * x - 5, jnp.asarray(2.0),
                   jnp.asarray(3.0))
@@ -199,7 +199,7 @@ class TestBrent:
         np.testing.assert_allclose(float(r2), 0.7390851, atol=1e-5)
 
     def test_batched_under_jit(self):
-        from drmlt_mitsuba_tpu.core.quad import brent
+        from drmlt_mitsuba.core.quad import brent
 
         k = jnp.arange(1.0, 9.0)
         f = jax.jit(lambda: brent(lambda x: x * x - k, jnp.zeros(8),

@@ -51,13 +51,13 @@ def test_two_process_matches_single_process(tmp_path):
 
     # single-process reference over the same (2, 1) mesh shape, using two
     # of the pytest session's virtual CPU devices
-    from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig, drmlt_step
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
-    from drmlt_mitsuba_tpu.parallel.distributed import render_mcmc_sharded
-    from drmlt_mitsuba_tpu.parallel.mesh import make_mesh
-    from drmlt_mitsuba_tpu.render import film as filmlib
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
+    from drmlt_mitsuba.integrators.drmlt import DRMLTConfig, drmlt_step
+    from drmlt_mitsuba.integrators.layout import PathConfig
+    from drmlt_mitsuba.integrators.path import trace_paths
+    from drmlt_mitsuba.parallel.distributed import render_mcmc_sharded
+    from drmlt_mitsuba.parallel.mesh import make_mesh
+    from drmlt_mitsuba.render import film as filmlib
+    from drmlt_mitsuba.scene.builders import cornell_box
 
     scene = cornell_box(16, 16)
     pcfg = PathConfig(max_depth=2, rr_depth=100)

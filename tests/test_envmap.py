@@ -4,16 +4,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import drmlt_mitsuba_tpu.scene.types as st
-from drmlt_mitsuba_tpu.core import transform
-from drmlt_mitsuba_tpu.integrators.erpt import ERPTConfig, render_erpt
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt, trace_paths
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.render.emitter import (
+import drmlt_mitsuba.scene.types as st
+from drmlt_mitsuba.core import transform
+from drmlt_mitsuba.integrators.erpt import ERPTConfig, render_erpt
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt, trace_paths
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.render.emitter import (
     env_dir_to_uv, env_uv_to_dir,
 )
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 def _env_scene():

@@ -13,18 +13,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.erpt import ERPTConfig, render_erpt_mlt
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
-from drmlt_mitsuba_tpu.scene.types import prepare_scene
+from drmlt_mitsuba.integrators.erpt import ERPTConfig, render_erpt_mlt
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 def test_erpt_mlt_matches_pt():
     """MCMC-vs-MC: path-space ERPT == PT restricted to k in [2, 4]."""
     W = H = 32
-    scene = prepare_scene(cornell_box(W, H))
+    scene = cornell_box(W, H)
     fc = filmlib.make_film_config(W, H, "box")
     cfg = ERPTConfig(n_chains=2048, chain_length=96,
                      samples_per_batch=16384)
@@ -58,7 +57,7 @@ def test_erpt_cli_dispatch(tmp_path):
     eligible scene (cornell.xml) and produces a finite, lit image."""
     import os
 
-    from drmlt_mitsuba_tpu.utils.cli import main
+    from drmlt_mitsuba.utils.cli import main
 
     scene_xml = os.path.join(os.path.dirname(__file__), "data",
                              "cornell.xml")

@@ -11,18 +11,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig, drmlt_step
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.mcmc import state_from_splats
-from drmlt_mitsuba_tpu.integrators.path import make_path_trace
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
-from drmlt_mitsuba_tpu.scene.types import prepare_scene
+from drmlt_mitsuba.integrators.drmlt import DRMLTConfig, drmlt_step
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.mcmc import state_from_splats
+from drmlt_mitsuba.integrators.path import make_path_trace
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 @pytest.mark.parametrize("typ", ["orbital", "mira", "green"])
 def test_fused_equals_unfused(typ):
-    scene = prepare_scene(cornell_box(32, 32))
+    scene = cornell_box(32, 32)
     pcfg = PathConfig(max_depth=3, rr_depth=100)
     n = pcfg.n_dims + pcfg.n_dims % 2
     trace = make_path_trace(scene, pcfg)

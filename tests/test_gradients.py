@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import trace_paths
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import trace_paths
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 def _render_mean(scene, cfg, u):
@@ -91,7 +91,7 @@ def test_grad_wrt_medium_sigma_finite_diff():
     """Pixel gradients flow through the homogeneous volumetric path
     (closed-form transmittance + distance-sampling weights): jax.grad
     w.r.t. sigma_t matches finite differences."""
-    from drmlt_mitsuba_tpu.render.medium import make_medium
+    from drmlt_mitsuba.render.medium import make_medium
 
     base = cornell_box(32, 32)
     cfg = PathConfig(max_depth=3, rr_depth=100)
@@ -114,7 +114,7 @@ def test_grad_wrt_medium_sigma_finite_diff():
 def test_grad_wrt_medium_g():
     """Gradient w.r.t. the HG asymmetry is finite and matches finite
     differences (phase sampling reparameterizes smoothly in g)."""
-    from drmlt_mitsuba_tpu.render.medium import make_medium
+    from drmlt_mitsuba.render.medium import make_medium
 
     base = cornell_box(32, 32)
     cfg = PathConfig(max_depth=3, rr_depth=100)
@@ -160,7 +160,7 @@ def test_inverse_rendering_recovers_medium_sigma():
     """Gradient descent through the volumetric tracer recovers the fog
     extinction from pixel means (the medium-parameter analog of the
     albedo recovery above; exercises the fixed NaN-free pullbacks)."""
-    from drmlt_mitsuba_tpu.render.medium import make_medium
+    from drmlt_mitsuba.render.medium import make_medium
 
     base = cornell_box(16, 16)
     cfg = PathConfig(max_depth=3, rr_depth=100)
@@ -185,178 +185,3 @@ def test_inverse_rendering_recovers_medium_sigma():
         p, state, l = step(p, state)
     rec = float(jnp.exp(p))
     np.testing.assert_allclose(rec, target_sig, rtol=0.1)
-
-
-def test_grad_through_mega_path():
-    """The differentiable fast path (ops/pallas/megatrace.py
-    make_mega_trace_diff): forward runs the Pallas megakernel (interpret
-    mode on CPU), backward replays the lane-exact XLA wavefront.  Grad
-    w.r.t. albedo matches finite differences of the KERNEL's own primal,
-    and the emitter-radiance gradient is exactly linear."""
-    from drmlt_mitsuba_tpu.ops.pallas.megatrace import (
-        make_mega_trace_diff, mega_eligible,
-    )
-
-    scene = cornell_box(32, 32)
-    cfg = PathConfig(max_depth=3, rr_depth=100)
-    assert mega_eligible(scene, cfg)
-    trace = make_mega_trace_diff(scene, cfg, interpret=True)
-    u = jax.random.uniform(jax.random.PRNGKey(0), (2048, cfg.n_dims))
-
-    def loss(a):
-        s = scene.replace(materials=scene.materials.replace(
-            albedo=scene.materials.albedo.at[0, 0].set(a)))
-        return jnp.mean(trace(s, u).value[:, 0, 0])
-
-    g = float(jax.grad(loss)(0.7))
-    eps = 1e-2
-    fd = (float(loss(0.7 + eps)) - float(loss(0.7 - eps))) / (2 * eps)
-    np.testing.assert_allclose(g, fd, rtol=0.05)
-    assert g > 0
-
-    def mean_lum(scale):
-        s = scene.replace(emitters=scene.emitters.replace(
-            radiance=scene.emitters.radiance * scale))
-        return jnp.mean(trace(s, u).lum)
-
-    g = float(jax.grad(mean_lum)(1.0))
-    v = float(mean_lum(1.0))
-    np.testing.assert_allclose(g, v, rtol=1e-4)
-
-
-def test_mega_diff_forward_matches_wavefront():
-    """pack_mega_tables_jnp must pack byte-identically to the host-side
-    numpy packer, so the diff path's forward equals the standard mega
-    trace (and hence the wavefront)."""
-    from drmlt_mitsuba_tpu.ops.pallas.megatrace import (
-        make_mega_trace_diff, pack_mega_tables, pack_mega_tables_jnp,
-    )
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
-
-    scene = cornell_box(32, 32)
-    for a, b in zip(pack_mega_tables(scene), pack_mega_tables_jnp(scene)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    cfg = PathConfig(max_depth=4, rr_depth=3)
-    trace = make_mega_trace_diff(scene, cfg, interpret=True)
-    u = jax.random.uniform(jax.random.PRNGKey(3), (1024, cfg.n_dims))
-    va = np.asarray(trace_paths(scene, cfg, u).value[:, 0, :])
-    vb = np.asarray(trace(scene, u).value[:, 0, :])
-    rel = np.abs(va - vb) / (np.abs(va) + 1e-3)
-    assert (rel > 1e-3).any(-1).sum() <= 1024 // 500
-
-
-def test_gradient_replay_forces_xla_intersect(monkeypatch):
-    """On TPU the default intersect dispatch picks Pallas sweeps, which
-    carry no autodiff rules — the bwd replay inside make_mega_trace_diff
-    crashed with 'Linearization failed' on the real chip (bench 2026-08-20)
-    until it wrapped the replay in force_xla_intersect().  Pin the
-    mechanism: with the TPU dispatch active (simulated), the context must
-    reroute intersect/occluded to the XLA sweep, and jax.grad through
-    trace_paths inside the context must succeed."""
-    from drmlt_mitsuba_tpu.ops import intersect as I
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
-
-    scene = prepare_scene(cornell_box(32, 32))
-    assert scene.tris_packed is not None
-    o = jnp.zeros((8, 3))
-    monkeypatch.setattr(I, "_on_tpu", lambda: True)
-
-    def _boom(*a, **k):
-        raise AssertionError("Pallas sweep dispatched inside grad replay")
-
-    monkeypatch.setattr(I, "_tri_best_pallas", _boom)
-    monkeypatch.setattr(I, "_sweep_any", _boom)
-    assert I._use_pallas(scene, o)          # the crash scenario is live
-    with I.force_xla_intersect():
-        assert not I._use_pallas(scene, o)
-        assert not I._use_clusters(scene, o)
-        cfg = PathConfig(max_depth=2, rr_depth=100)
-        u = jax.random.uniform(jax.random.PRNGKey(1), (64, cfg.n_dims))
-
-        def loss(scale):
-            s = scene.replace(emitters=scene.emitters.replace(
-                radiance=scene.emitters.radiance * scale))
-            return jnp.mean(trace_paths(s, cfg, u).lum)
-
-        g = float(jax.grad(loss)(1.0))
-        np.testing.assert_allclose(g, float(loss(1.0)), rtol=1e-4)
-    assert I._use_pallas(scene, o)          # context restored
-
-
-def test_mega_trace_rad_matches_wavefront_grad():
-    """In-kernel emitter-radiance adjoint (round 4): the megakernel
-    accumulates the per-lane linear coefficients T[e][c] during the
-    FORWARD and the custom VJP is one einsum — must equal jax.grad of the
-    XLA wavefront (which replays + linearizes the whole trace) on both
-    the forward values and d mean(lum) / d radiance."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
-    from drmlt_mitsuba_tpu.ops.pallas.megatrace import make_mega_trace_rad
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
-
-    scene = prepare_scene(cornell_box(32, 32))
-    cfg = PathConfig(max_depth=4, rr_depth=3)
-    trace_r = make_mega_trace_rad(scene, cfg, interpret=True)
-    u = jax.random.uniform(jax.random.PRNGKey(11), (512, cfg.n_dims))
-    rad = scene.emitters.radiance
-
-    sp = trace_r(rad, u)
-    ref_sp = trace_paths(scene, cfg, u)
-    np.testing.assert_allclose(np.asarray(sp.lum).mean(),
-                               np.asarray(ref_sp.lum).mean(), rtol=2e-3)
-
-    g_fast = jax.grad(lambda r: jnp.mean(trace_r(r, u).lum))(rad)
-
-    def loss_ref(r):
-        s2 = scene.replace(emitters=scene.emitters.replace(radiance=r))
-        return jnp.mean(trace_paths(s2, cfg, u).lum)
-
-    g_ref = jax.grad(loss_ref)(rad)
-    np.testing.assert_allclose(np.asarray(g_fast), np.asarray(g_ref),
-                               rtol=5e-3, atol=1e-7)
-
-
-def test_mega_trace_alb_matches_wavefront_grad():
-    """In-kernel albedo adjoint (round 5, VERDICT r4 item 6): the
-    megakernel accumulates per-lane polynomial-power Jacobian rows
-    A[m][c] during the FORWARD (contrib * power / albedo) and the custom
-    VJP is one einsum — must equal jax.grad of the XLA wavefront on both
-    forward values and d mean(lum) / d albedo.  rr_depth > max_depth:
-    the kernel detaches RR survival (sampling-pdf convention), so only
-    RR-free configs are exactly comparable."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
-    from drmlt_mitsuba_tpu.ops.pallas.megatrace import make_mega_trace_alb
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
-
-    scene = prepare_scene(cornell_box(32, 32,
-                                      tall_box_material="roughconductor"))
-    cfg = PathConfig(max_depth=4, rr_depth=100)
-    trace_a = make_mega_trace_alb(scene, cfg, interpret=True)
-    u = jax.random.uniform(jax.random.PRNGKey(12), (512, cfg.n_dims))
-    alb = scene.materials.albedo
-
-    sp = trace_a(alb, u)
-    ref_sp = trace_paths(scene, cfg, u)
-    np.testing.assert_allclose(np.asarray(sp.lum).mean(),
-                               np.asarray(ref_sp.lum).mean(), rtol=2e-3)
-
-    g_fast = jax.grad(lambda a: jnp.mean(trace_a(a, u).lum))(alb)
-
-    def loss_ref(a):
-        s2 = scene.replace(materials=scene.materials.replace(albedo=a))
-        return jnp.mean(trace_paths(s2, cfg, u).lum)
-
-    g_ref = jax.grad(loss_ref)(alb)
-    np.testing.assert_allclose(np.asarray(g_fast), np.asarray(g_ref),
-                               rtol=5e-3, atol=1e-6)

@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.scene.hair import (
+from drmlt_mitsuba.scene.hair import (
     load_hair, simplify_fibers, tessellate_hair,
 )
 
@@ -98,11 +98,10 @@ class TestSceneIntegration:
     def test_xml_render_hits_hair(self):
         """A thick 'hair' in front of the camera occludes the emitter
         behind it: center pixels differ from an empty scene."""
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import render_pt
-        from drmlt_mitsuba_tpu.render import film as filmlib
-        from drmlt_mitsuba_tpu.scene.types import prepare_scene
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import render_pt
+        from drmlt_mitsuba.render import film as filmlib
+        from drmlt_mitsuba.scene.xml import load_scene_xml
 
         with tempfile.NamedTemporaryFile(suffix=".hair", delete=False,
                                          mode="w") as f:
@@ -142,7 +141,6 @@ class TestSceneIntegration:
         finally:
             os.unlink(xpath)
             os.unlink(hpath)
-        scene = prepare_scene(scene)
         cfg = PathConfig(max_depth=2, rr_depth=100)
         fc = filmlib.make_film_config(32, 32, "box")
         film = render_pt(scene, cfg, jax.random.PRNGKey(0), 32 * 32 * 8,
@@ -196,7 +194,7 @@ class TestDeformable:
         f = tempfile.NamedTemporaryFile("w", suffix=".xml", delete=False)
         f.write(xml)
         f.close()
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+        from drmlt_mitsuba.scene.xml import load_scene_xml
         try:
             defaults = {} if time_default is None else {
                 "time": time_default}

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.ops.intersect import intersect, occluded
-from drmlt_mitsuba_tpu.scene.builders import cornell_box, furnace_sphere
+from drmlt_mitsuba.ops.intersect import intersect, occluded
+from drmlt_mitsuba.scene.builders import cornell_box, furnace_sphere
 
 
 def test_cornell_walls():

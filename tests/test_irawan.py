@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.render.irawan import (
+from drmlt_mitsuba.render.irawan import (
     build_pattern, irawan_eval, irawan_kd, parse_wft,
 )
 
@@ -173,7 +173,7 @@ class TestSceneIntegration:
         import os
         import tempfile
 
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+        from drmlt_mitsuba.scene.xml import load_scene_xml
         wf = tempfile.NamedTemporaryFile("w", suffix=".wft", delete=False)
         wf.write(wft_text)
         wf.close()
@@ -214,7 +214,7 @@ class TestSceneIntegration:
         return scene
 
     def test_xml_load(self):
-        from drmlt_mitsuba_tpu.scene.types import BSDF_IRAWAN
+        from drmlt_mitsuba.scene.types import BSDF_IRAWAN
         scene = self._xml_scene(PLAIN_WEAVE)
         assert scene.irawan is not None
         assert scene.irawan.tile == (2, 2)
@@ -224,11 +224,11 @@ class TestSceneIntegration:
     def test_diffuse_cloth_equals_diffuse(self):
         """Cloth with ks=0 and uniform kd is EXACTLY a diffuse surface:
         full-render image equality against a diffuse-material scene."""
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import render_pt
-        from drmlt_mitsuba_tpu.render import film as filmlib
-        from drmlt_mitsuba_tpu.scene.types import (
-            BSDF_DIFFUSE, prepare_scene,
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import render_pt
+        from drmlt_mitsuba.render import film as filmlib
+        from drmlt_mitsuba.scene.types import (
+            BSDF_DIFFUSE,
         )
 
         txt = PLAIN_WEAVE
@@ -236,7 +236,7 @@ class TestSceneIntegration:
             txt = txt.replace(old, "ks = {0, 0, 0}")
         for old in ("kd = {0.3, 0.05, 0.05}", "kd = {0.05, 0.05, 0.3}"):
             txt = txt.replace(old, "kd = {0.7, 0.7, 0.7}")
-        cloth = prepare_scene(self._xml_scene(txt))
+        cloth = self._xml_scene(txt)
 
         # same scene with the cloth row swapped to plain diffuse 0.7
         diff = cloth.replace(
@@ -259,12 +259,11 @@ class TestSceneIntegration:
         np.testing.assert_allclose(i1, i2, rtol=2e-3, atol=1e-5)
 
     def test_specular_cloth_renders(self):
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import render_pt
-        from drmlt_mitsuba_tpu.render import film as filmlib
-        from drmlt_mitsuba_tpu.scene.types import prepare_scene
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import render_pt
+        from drmlt_mitsuba.render import film as filmlib
 
-        scene = prepare_scene(self._xml_scene(PLAIN_WEAVE))
+        scene = self._xml_scene(PLAIN_WEAVE)
         cfg = PathConfig(max_depth=3, rr_depth=100)
         fc = filmlib.make_film_config(16, 16, "box")
         film = render_pt(scene, cfg, jax.random.PRNGKey(1), 16 * 16 * 16,

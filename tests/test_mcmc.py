@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators import kernels
-from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig, render_drmlt
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.mcmc import bootstrap
-from drmlt_mitsuba_tpu.integrators.path import render_pt, trace_paths
-from drmlt_mitsuba_tpu.integrators.pssmlt import PSSMLTConfig, render_pssmlt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators import kernels
+from drmlt_mitsuba.integrators.drmlt import DRMLTConfig, render_drmlt
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.mcmc import bootstrap
+from drmlt_mitsuba.integrators.path import render_pt, trace_paths
+from drmlt_mitsuba.integrators.pssmlt import PSSMLTConfig, render_pssmlt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 class TestKernels:

@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import trace_paths
-from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import trace_paths
+from drmlt_mitsuba.scene.xml import load_scene_xml
 
 XML_CUBE = """<scene version="0.6.0">
   <integrator type="volpath"/>

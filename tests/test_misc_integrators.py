@@ -5,14 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.misc import (
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.misc import (
     render_field, render_motion_aov, render_multichannel, render_ptracer,
 )
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
-from drmlt_mitsuba_tpu.scene.types import prepare_scene
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 def test_ptracer_matches_pt_mean():
@@ -20,7 +19,7 @@ def test_ptracer_matches_pt_mean():
     t=1 strategy per length, so the image MEAN must agree with the
     unidirectional path tracer within MC noise (the per-pixel variance
     profile differs — that is the point of the technique)."""
-    scene = prepare_scene(cornell_box(16, 16))
+    scene = cornell_box(16, 16)
     fc = filmlib.make_film_config(16, 16, "box")
     img_lt = np.asarray(render_ptracer(
         scene, fc, jax.random.PRNGKey(0), 1 << 18, max_depth=4))[..., :3]
@@ -38,7 +37,7 @@ def test_ptracer_matches_pt_mean():
 
 
 def test_field_aovs():
-    scene = prepare_scene(cornell_box(16, 16))
+    scene = cornell_box(16, 16)
     fc = filmlib.make_film_config(16, 16, "box")
     n = np.asarray(render_field(scene, fc, jax.random.PRNGKey(1),
                                 "shnormal", spp=8))[..., :3]
@@ -56,9 +55,9 @@ def test_field_aovs():
 
 
 def test_motion_aov():
-    from drmlt_mitsuba_tpu.scene.types import build_motion
+    from drmlt_mitsuba.scene.types import build_motion
 
-    scene = prepare_scene(cornell_box(16, 16))
+    scene = cornell_box(16, 16)
     fc = filmlib.make_film_config(16, 16, "box")
     z = np.asarray(render_motion_aov(scene, fc, jax.random.PRNGKey(2)))
     assert np.abs(z).max() == 0.0                     # static scene
@@ -74,7 +73,7 @@ def test_motion_aov():
 
 
 def test_multichannel():
-    scene = prepare_scene(cornell_box(16, 16))
+    scene = cornell_box(16, 16)
     fc = filmlib.make_film_config(16, 16, "box")
     out = render_multichannel(scene, fc, jax.random.PRNGKey(0),
                               channels=("shnormal", "distance"), spp=4)

@@ -6,15 +6,15 @@ import jax
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.bidir import BDPTConfig
-from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.mmlt_grouped import (
+from drmlt_mitsuba.integrators.bidir import BDPTConfig
+from drmlt_mitsuba.integrators.drmlt import DRMLTConfig
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.mmlt_grouped import (
     make_mmlt_trace_fixed, render_drmlt_mmlt_grouped,
 )
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 W = H = 16
 
@@ -37,7 +37,7 @@ def test_fixed_trace_is_unbiased_per_depth(refs):
     scene, fc, pt3 = refs
     total = np.zeros(3)
     for k in (1, 2, 3):
-        trace, _, n_dims = make_mmlt_trace_fixed(scene, k, force_xla=True)
+        trace, _, n_dims = make_mmlt_trace_fixed(scene, k)
 
         @jax.jit
         def run(key, film, trace=trace, n_dims=n_dims):
@@ -64,7 +64,7 @@ def test_grouped_drmlt_matches_pt(refs):
     img, aux = render_drmlt_mmlt_grouped(
         scene, BDPTConfig(max_depth=3),
         DRMLTConfig(type="orbital", n_chains=1024, n_bootstrap=16384),
-        fc, jax.random.PRNGKey(3), 500, force_xla=True, min_group=128,
+        fc, jax.random.PRNGKey(3), 500, min_group=128,
     )
     img = np.asarray(img)
     assert np.all(np.isfinite(img))
@@ -81,9 +81,24 @@ def test_grouped_fix_emitter_path(refs):
         scene, BDPTConfig(max_depth=3),
         DRMLTConfig(type="green", n_chains=1024, n_bootstrap=16384,
                     fix_emitter_path=True),
-        fc, jax.random.PRNGKey(4), 500, force_xla=True, min_group=128,
+        fc, jax.random.PRNGKey(4), 500, min_group=128,
     )
     img = np.asarray(img)
     assert np.all(np.isfinite(img))
     err = np.abs(img.mean((0, 1)) - pt3).mean() / pt3.mean()
     assert err < 0.2, err
+
+
+@pytest.mark.parametrize("dr_type", ["green", "mira", "orbital"])
+def test_grouped_drmlt_types_match_pt(refs, dr_type):
+    """Every DRMLT second-stage type over the depth-grouped MMLT driver
+    integrates to the PT image (small chain count, short chains)."""
+    scene, fc, pt3 = refs
+    img, _ = render_drmlt_mmlt_grouped(
+        scene, BDPTConfig(max_depth=3),
+        DRMLTConfig(type=dr_type, n_chains=256, n_bootstrap=16384),
+        fc, jax.random.PRNGKey(11), 400)
+    img = np.asarray(img)
+    assert np.all(np.isfinite(img))
+    err = np.abs(img.mean((0, 1)) - pt3).mean() / pt3.mean()
+    assert err < 0.15, err

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.bidir import (
+from drmlt_mitsuba.integrators.bidir import (
     BDPTConfig, trace_mmlt, trace_mmlt_dense,
 )
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.scene.builders import cornell_box
 
 R = 2048
 
@@ -52,7 +52,7 @@ def test_mmlt_selected_matches_dense_no_light_image():
 
 
 def test_mmlt_selected_matches_dense_point_light():
-    from drmlt_mitsuba_tpu.scene import types as st
+    from drmlt_mitsuba.scene import types as st
 
     scene = cornell_box(32, 32)
     tris = scene.tris.replace(

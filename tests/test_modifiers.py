@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import trace_paths
-from drmlt_mitsuba_tpu.render.bsdf import eval_bsdf, is_delta_kind, sample_bsdf
-from drmlt_mitsuba_tpu.scene import types as st
-from drmlt_mitsuba_tpu.scene.builders import furnace_sphere
-from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import trace_paths
+from drmlt_mitsuba.render.bsdf import eval_bsdf, is_delta_kind, sample_bsdf
+from drmlt_mitsuba.scene import types as st
+from drmlt_mitsuba.scene.builders import furnace_sphere
+from drmlt_mitsuba.scene.xml import load_scene_xml
 
 R = 8192
 

@@ -17,11 +17,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt, trace_paths
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
-from drmlt_mitsuba_tpu.scene.types import TriangleMotion, build_motion
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt, trace_paths
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
+from drmlt_mitsuba.scene.types import TriangleMotion, build_motion
 
 
 def _with_motion(scene, shift):
@@ -97,15 +97,6 @@ def test_motion_render_shows_smear():
     assert lo * 0.9 <= img_m.mean() <= hi * 1.1
 
 
-def test_motion_scene_not_mega_eligible():
-    from drmlt_mitsuba_tpu.ops.pallas.megatrace import mega_eligible
-
-    scene_m = _with_motion(cornell_box(32, 32), (1.0, 0.0, 0.0))
-    assert not mega_eligible(scene_m, PathConfig(max_depth=3, motion=True))
-    assert not mega_eligible(scene_m, PathConfig(max_depth=3))
-    assert mega_eligible(cornell_box(32, 32), PathConfig(max_depth=3))
-
-
 def test_moving_emitter_rejected():
     import pytest
 
@@ -151,7 +142,7 @@ def test_deformable_xml_shutter_builds_motion():
     f = tempfile.NamedTemporaryFile("w", suffix=".xml", delete=False)
     f.write(xml)
     f.close()
-    from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+    from drmlt_mitsuba.scene.xml import load_scene_xml
     try:
         scene, settings = load_scene_xml(f.name)
     finally:

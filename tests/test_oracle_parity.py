@@ -8,8 +8,8 @@ would be invisible to the repo's self-consistency tests but disagrees
 here (this harness caught a real one: the emitted-hit MIS weight was
 applied even with use_nee=False).
 
-Ref: VERDICT.md missing item 1; the reference's own cross-check is
-src/libbidir/verification.cpp (pdf vs pdf), ours is image-space.
+The reference's own cross-check is src/libbidir/verification.cpp (pdf vs
+pdf); ours is image-space.
 """
 import os
 import subprocess
@@ -19,23 +19,23 @@ import pytest
 
 import jax
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render.film import FilmConfig, develop
-from drmlt_mitsuba_tpu.render.filters import make_filter
-from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
-from drmlt_mitsuba_tpu.utils.scene_dump import dump_scene
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render.film import FilmConfig, develop
+from drmlt_mitsuba.render.filters import make_filter
+from drmlt_mitsuba.scene.xml import load_scene_xml
+from drmlt_mitsuba.utils.scene_dump import dump_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORACLE = os.path.join(ROOT, "native", "cpu_oracle")
 CORNELL = os.path.join(ROOT, "tests", "data", "cornell.xml")
-
-pytestmark = pytest.mark.skipif(
-    not os.path.exists(ORACLE), reason="native/cpu_oracle not built"
-)
-
 W = H = 64
 SPP = 512
+
+
+@pytest.fixture(autouse=True)
+def _oracle_built(native_built):
+    assert os.path.exists(ORACLE), "make -C native did not build cpu_oracle"
 
 
 @pytest.fixture(scope="module")
@@ -118,9 +118,8 @@ def test_pt_glass_sphere_parity(tmp_path):
 
 def test_pt_veach_door_parity(tmp_path):
     """Second bench scene vs the oracle: cross-validates the Oren-Nayar
-    rough-diffuse term in BOTH implementations (the oracle gained the
-    real ON factor alongside the megakernel kind)."""
-    from drmlt_mitsuba_tpu.scene.builders import veach_door
+    rough-diffuse term in BOTH implementations."""
+    from drmlt_mitsuba.scene.builders import veach_door
 
     scene = veach_door(W, H)
     fc = FilmConfig(width=W, height=H, filter=make_filter("box"))
@@ -153,9 +152,9 @@ def test_mmlt_image_parity(dumped, tmp_path):
     heuristic absorbs — the combined images must agree in expectation."""
     import jax.numpy as jnp
 
-    from drmlt_mitsuba_tpu.integrators.bidir import BDPTConfig
-    from drmlt_mitsuba_tpu.integrators.mmlt import make_mmlt_trace, mmlt_masks
-    from drmlt_mitsuba_tpu.render import film as filmlib
+    from drmlt_mitsuba.integrators.bidir import BDPTConfig
+    from drmlt_mitsuba.integrators.mmlt import make_mmlt_trace, mmlt_masks
+    from drmlt_mitsuba.render import film as filmlib
 
     scene, fc, scene_bin = dumped
     depth, spp = 4, 384
@@ -163,7 +162,7 @@ def test_mmlt_image_parity(dumped, tmp_path):
 
     bcfg = BDPTConfig(max_depth=depth)
     _, _, n_dims = mmlt_masks(bcfg)
-    trace = make_mmlt_trace(scene, bcfg, force_xla=True)
+    trace = make_mmlt_trace(scene, bcfg)
     batch = 65536
 
     @jax.jit

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig, drmlt_step
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import trace_paths
-from drmlt_mitsuba_tpu.parallel.distributed import render_mcmc_sharded
-from drmlt_mitsuba_tpu.parallel.mesh import chain_sharding, make_mesh
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.integrators.drmlt import DRMLTConfig, drmlt_step
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import trace_paths
+from drmlt_mitsuba.parallel.distributed import render_mcmc_sharded
+from drmlt_mitsuba.parallel.mesh import chain_sharding, make_mesh
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 @pytest.fixture(scope="module")
@@ -62,71 +62,89 @@ def test_chain_sharding_placement(setup):
 
 
 def test_sharded_grouped_megadrmlt(setup):
-    """THE flagship under a mesh (round-4 judge ask): the depth-grouped
-    multi-mutation megadrmlt driver shard_map'd over ('host','chain')
-    with interpret-mode kernels — per-device Pallas launches on the
-    chain shard, film psum.  Pins (a) determinism across identical runs,
-    (b) agreement of the sharded image with the single-device grouped
-    driver on the same scene (independent RNG streams -> statistical
-    agreement of the developed means)."""
-    import numpy as np
-
-    from drmlt_mitsuba_tpu.integrators.bidir import BDPTConfig
-    from drmlt_mitsuba_tpu.integrators.mmlt_grouped import (
+    """The flagship under a mesh: the depth-grouped DRMLT driver with each
+    group's drmlt_step scan shard_map'd over ('host','chain').  Pins (a)
+    determinism across identical runs, (b) agreement of the sharded image
+    with the single-device grouped driver on the same scene (independent
+    RNG streams -> statistical agreement of the developed means), (c) the
+    final chain state is spread over every device, one shard each."""
+    from drmlt_mitsuba.integrators.bidir import BDPTConfig
+    from drmlt_mitsuba.integrators.mmlt_grouped import (
         render_drmlt_mmlt_grouped, render_drmlt_mmlt_grouped_sharded,
     )
-    from drmlt_mitsuba_tpu.render import film as filmlib
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
 
     W = H = 32
-    scene = prepare_scene(cornell_box(W, H))
+    scene = cornell_box(W, H)
     fc = filmlib.make_film_config(W, H, "box")
     bcfg = BDPTConfig(max_depth=3)
     dcfg = DRMLTConfig(type="orbital", n_chains=512, n_bootstrap=8192)
     mesh = make_mesh(8)
 
     img, aux = render_drmlt_mmlt_grouped_sharded(
-        mesh, scene, bcfg, dcfg, fc, jax.random.PRNGKey(3), n_steps=64,
-        interpret=True, n_mut=16)
+        mesh, scene, bcfg, dcfg, fc, jax.random.PRNGKey(3), n_steps=64)
     a = np.asarray(img)
     assert np.isfinite(a).all() and a.mean() > 0
     img2, _ = render_drmlt_mmlt_grouped_sharded(
-        mesh, scene, bcfg, dcfg, fc, jax.random.PRNGKey(3), n_steps=64,
-        interpret=True, n_mut=16)
+        mesh, scene, bcfg, dcfg, fc, jax.random.PRNGKey(3), n_steps=64)
     np.testing.assert_array_equal(a, np.asarray(img2))   # deterministic
+    for state in aux["states"].values():
+        shards = state.u.addressable_shards
+        assert len({s.device for s in shards}) == 8
+        assert all(s.data.shape[0] == 512 // 8 for s in shards)
 
     ref, _ = render_drmlt_mmlt_grouped(
-        scene, bcfg, dcfg, fc, jax.random.PRNGKey(4), n_steps=64,
-        force_xla=True)
+        scene, bcfg, dcfg, fc, jax.random.PRNGKey(4), n_steps=64)
     r = np.asarray(ref)
     ratio = a.mean() / r.mean()
     assert 0.8 < ratio < 1.25, f"sharded vs single image mean: {ratio}"
 
 
-def test_sharded_megadrmlt_lane_gate(setup):
-    """Real-TPU (interpret=False) launches need a 128-multiple lane
-    block per device: the kernel's deferred-splat flush reshapes each
-    (8, L/8) record row to (1, L) lanes, which Mosaic refuses below
-    L=128 (caught ON CHIP round 4 at 64 chains/device).  The driver
-    must fail loudly, not hand Mosaic an illegal shape cast."""
-    import pytest
+@pytest.fixture(scope="module")
+def grouped_small():
+    """Tiny grouped-render setup plus its single-device reference image."""
+    from drmlt_mitsuba.integrators.bidir import BDPTConfig
+    from drmlt_mitsuba.integrators.mmlt_grouped import (
+        render_drmlt_mmlt_grouped,
+    )
 
-    from drmlt_mitsuba_tpu.integrators.bidir import BDPTConfig
-    from drmlt_mitsuba_tpu.integrators.mmlt_grouped import (
+    scene = cornell_box(16, 16)
+    fc = filmlib.make_film_config(16, 16, "box")
+    bcfg = BDPTConfig(max_depth=2)
+    dcfg = DRMLTConfig(type="orbital", n_chains=256, n_bootstrap=8192)
+    ref, _ = render_drmlt_mmlt_grouped(
+        scene, bcfg, dcfg, fc, jax.random.PRNGKey(5), n_steps=48)
+    return scene, fc, bcfg, dcfg, np.asarray(ref)
+
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4, 8])
+def test_sharded_grouped_device_counts(grouped_small, n_devices):
+    """The sharded grouped driver runs on 1, 2, 4 and 8 devices and its
+    image mean agrees with the single-device grouped render."""
+    from drmlt_mitsuba.integrators.mmlt_grouped import (
         render_drmlt_mmlt_grouped_sharded,
     )
-    from drmlt_mitsuba_tpu.render import film as filmlib
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
 
-    W = H = 16
-    scene = prepare_scene(cornell_box(W, H))
-    fc = filmlib.make_film_config(W, H, "box")
-    bcfg = BDPTConfig(max_depth=2)
-    dcfg = DRMLTConfig(type="orbital", n_chains=64 * 8, n_bootstrap=2048)
-    mesh = make_mesh(8)
-    with pytest.raises(ValueError, match="chains per device"):
+    scene, fc, bcfg, dcfg, ref = grouped_small
+    img, aux = render_drmlt_mmlt_grouped_sharded(
+        make_mesh(n_devices), scene, bcfg, dcfg, fc, jax.random.PRNGKey(5),
+        n_steps=48)
+    a = np.asarray(img)
+    assert a.shape == (16, 16, 3) and np.isfinite(a).all()
+    for state in aux["states"].values():
+        assert len(state.u.sharding.device_set) == n_devices
+    ratio = a.mean() / ref.mean()
+    assert 0.8 < ratio < 1.25, ratio
+
+
+def test_sharded_grouped_rejects_uneven_chains():
+    from drmlt_mitsuba.integrators.bidir import BDPTConfig
+    from drmlt_mitsuba.integrators.mmlt_grouped import (
+        render_drmlt_mmlt_grouped_sharded,
+    )
+
+    with pytest.raises(ValueError, match="does not divide"):
         render_drmlt_mmlt_grouped_sharded(
-            mesh, scene, bcfg, dcfg, fc, jax.random.PRNGKey(3),
-            n_steps=16, interpret=False, n_mut=16)
+            make_mesh(8), cornell_box(16, 16), BDPTConfig(max_depth=2),
+            DRMLTConfig(type="orbital", n_chains=100),
+            filmlib.make_film_config(16, 16, "box"), jax.random.PRNGKey(0),
+            n_steps=4)

@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt, trace_paths
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box, furnace_sphere
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt, trace_paths
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box, furnace_sphere
 
 
 def test_furnace_white():
@@ -26,7 +26,7 @@ def test_furnace_dielectric():
     """A lossless smooth-glass sphere in the furnace preserves unit
     radiance exactly (regression: refraction used +cos_t for entering
     rays, bouncing them back into the upper hemisphere)."""
-    from drmlt_mitsuba_tpu.scene import types as st
+    from drmlt_mitsuba.scene import types as st
 
     scene = furnace_sphere(env=1.0).replace(
         materials=st.make_material_table(
@@ -60,8 +60,8 @@ def test_furnace_albedo():
 def test_direct_lighting_analytic():
     """NEE against a small distant area light matches the point-source
     approximation L = rho/pi * Le * (A cos_l / d^2) * cos_s."""
-    import drmlt_mitsuba_tpu.scene.types as st
-    from drmlt_mitsuba_tpu.core import transform
+    import drmlt_mitsuba.scene.types as st
+    from drmlt_mitsuba.core import transform
 
     # floor quad at y=0, small light patch at height h facing down
     h = 10.0
@@ -156,7 +156,7 @@ def test_trace_jit_and_grad():
 def test_furnace_difftrans():
     """A perfect diffuse transmitter in the furnace also preserves unit
     radiance (transmits everything it receives, diffusely)."""
-    from drmlt_mitsuba_tpu.scene import types as st
+    from drmlt_mitsuba.scene import types as st
 
     scene = furnace_sphere().replace(
         materials=st.make_material_table(
@@ -172,8 +172,8 @@ def test_furnace_difftrans():
 def test_hk_slab_energy():
     """Hanrahan-Krueger slab: total reflected+transmitted energy stays
     below 1 and the Dirac transmission fraction equals exp(-tau/mu)."""
-    from drmlt_mitsuba_tpu.render.bsdf import sample_bsdf
-    from drmlt_mitsuba_tpu.scene import types as st
+    from drmlt_mitsuba.render.bsdf import sample_bsdf
+    from drmlt_mitsuba.scene import types as st
 
     table = st.make_material_table([dict(
         kind=st.BSDF_HK, spec_refl=(1.5, 1.5, 1.5),

@@ -9,17 +9,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators import pathspace as P
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
-from drmlt_mitsuba_tpu.scene.types import prepare_scene
+from drmlt_mitsuba.integrators import pathspace as P
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 def _scene(tall="diffuse", wh=32, sphere=None):
-    return prepare_scene(cornell_box(wh, wh, tall_box_material=tall,
-                                     sphere_material=sphere))
+    return cornell_box(wh, wh, tall_box_material=tall,
+                       sphere_material=sphere)
 
 
 def test_seed_paths_valid():
@@ -91,7 +90,7 @@ def test_mlt_cli_dispatch(tmp_path):
     import os
     import warnings
 
-    from drmlt_mitsuba_tpu.utils.cli import main
+    from drmlt_mitsuba.utils.cli import main
 
     scene_xml = os.path.join(os.path.dirname(__file__), "data",
                              "cornell.xml")

@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.core.chisquare import chi2_test
-from drmlt_mitsuba_tpu.render.medium import (
+from drmlt_mitsuba.core.chisquare import chi2_test
+from drmlt_mitsuba.render.medium import (
     PHASE_KKAY, PHASE_MICROFLAKE, PHASE_MIXTURE, hg_phase, make_medium,
     phase_eval_dir, phase_pdf_dir, phase_sample_dir, sigma_dir,
 )
-from drmlt_mitsuba_tpu.render.phase import (
+from drmlt_mitsuba.render.phase import (
     kkay_eval, kkay_normalization, sggx_eval, sggx_fiber_S, sggx_sample,
     sggx_sigma,
 )
@@ -155,7 +155,7 @@ class TestXMLPhases:
         import os
         import tempfile
 
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+        from drmlt_mitsuba.scene.xml import load_scene_xml
         xml = f"""<scene version="0.5.0">
           <sensor type="perspective">
             <film type="hdrfilm">

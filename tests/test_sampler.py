@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.render.sampler import (
+from drmlt_mitsuba.render.sampler import (
     halton, hammersley, make_sampler, radical_inverse,
 )
 
@@ -57,7 +57,7 @@ class TestSobol:
 
     def test_first_dims_unscrambled(self):
         """Known first points of dims 1-2 of the canonical sequence."""
-        from drmlt_mitsuba_tpu.render.sobol import sobol
+        from drmlt_mitsuba.render.sobol import sobol
         pts = np.asarray(sobol(jax.random.PRNGKey(0), jnp.arange(8), 2,
                                scramble=False))
         np.testing.assert_allclose(
@@ -70,7 +70,7 @@ class TestSobol:
     def test_zero2_sequence_first_pair(self):
         """Dims (1,2) form a (0,2)-sequence: the first 16 points land
         one-per-cell on every base-2 16-cell grid."""
-        from drmlt_mitsuba_tpu.render.sobol import sobol
+        from drmlt_mitsuba.render.sobol import sobol
         pts = np.asarray(sobol(jax.random.PRNGKey(0), jnp.arange(16), 2,
                                scramble=False))
         for (nx, ny) in [(4, 4), (2, 8), (8, 2), (16, 1), (1, 16)]:
@@ -82,7 +82,7 @@ class TestSobol:
     def test_ld02_every_pair_is_02(self):
         """ldsampler: EVERY consecutive dim pair is an independently
         shifted (0,2)-sequence (ref ldsampler.cpp semantics)."""
-        from drmlt_mitsuba_tpu.render.sobol import ld02
+        from drmlt_mitsuba.render.sobol import ld02
         pts = np.asarray(ld02(jax.random.PRNGKey(3), jnp.arange(16), 8))
         for d in range(0, 8, 2):
             for (nx, ny) in [(4, 4), (2, 8), (8, 2)]:
@@ -96,7 +96,7 @@ class TestSobol:
     def test_one_d_stratification_all_dims(self):
         """Every dim (incl. the searched-polynomial tail) is a base-2
         (0,1)-sequence: first 64 points hit all 64 intervals."""
-        from drmlt_mitsuba_tpu.render.sobol import sobol
+        from drmlt_mitsuba.render.sobol import sobol
         pts = np.asarray(sobol(jax.random.PRNGKey(0), jnp.arange(64), 40,
                                scramble=False))
         for d in range(40):
@@ -104,7 +104,7 @@ class TestSobol:
             assert len(set(cells.tolist())) == 64, d
 
     def test_scramble_preserves_stratification(self):
-        from drmlt_mitsuba_tpu.render.sobol import sobol
+        from drmlt_mitsuba.render.sobol import sobol
         pts = np.asarray(sobol(jax.random.PRNGKey(7), jnp.arange(16), 2))
         cx = np.floor(pts[:, 0] * 4).astype(int)
         cy = np.floor(pts[:, 1] * 4).astype(int)
@@ -123,13 +123,12 @@ def test_render_pt_with_ld_samplers():
     """The forward renderer consumes the configured sample generator:
     sobol/halton renders agree with the independent-sampler render and
     cut noise on this smooth scene."""
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import render_pt
-    from drmlt_mitsuba_tpu.render import film as filmlib
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
+    from drmlt_mitsuba.integrators.layout import PathConfig
+    from drmlt_mitsuba.integrators.path import render_pt
+    from drmlt_mitsuba.render import film as filmlib
+    from drmlt_mitsuba.scene.builders import cornell_box
 
-    scene = prepare_scene(cornell_box(16, 16))
+    scene = cornell_box(16, 16)
     cfg = PathConfig(max_depth=3, rr_depth=100)
     fc = filmlib.make_film_config(16, 16, "box")
     spp = 64

@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.render.sensor import sample_ray
-from drmlt_mitsuba_tpu.scene.types import (
+from drmlt_mitsuba.render.sensor import sample_ray
+from drmlt_mitsuba.scene.types import (
     CAMERA_ORTHOGRAPHIC, CAMERA_RADIANCEMETER, CAMERA_SPHERICAL,
     CAMERA_TELECENTRIC, make_camera,
 )
@@ -66,7 +66,7 @@ class TestCameras:
         assert spread_near > 0.05, spread_near
 
     def test_fluencemeter_uniform_sphere(self):
-        from drmlt_mitsuba_tpu.scene.types import CAMERA_FLUENCEMETER
+        from drmlt_mitsuba.scene.types import CAMERA_FLUENCEMETER
 
         cam = make_camera(EYE, 1.0, 1.0, kind=CAMERA_FLUENCEMETER)
         o, d = sample_ray(cam, _uv(8192))
@@ -77,10 +77,10 @@ class TestCameras:
 
     def test_fluencemeter_furnace(self):
         """In a unit furnace the fluence probe reads exactly 1."""
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
-        from drmlt_mitsuba_tpu.scene.builders import furnace_sphere
-        from drmlt_mitsuba_tpu.scene.types import (
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
+        from drmlt_mitsuba.scene.builders import furnace_sphere
+        from drmlt_mitsuba.scene.types import (
             CAMERA_FLUENCEMETER, make_camera,
         )
 
@@ -95,7 +95,7 @@ class TestCameras:
 
     def test_irradiancemeter_cosine(self):
         """Directions are cosine-distributed around the probe's +z."""
-        from drmlt_mitsuba_tpu.scene.types import CAMERA_IRRADIANCEMETER
+        from drmlt_mitsuba.scene.types import CAMERA_IRRADIANCEMETER
 
         cam = make_camera(EYE, 1.0, 1.0, kind=CAMERA_IRRADIANCEMETER)
         o, d = sample_ray(cam, _uv(100_000))
@@ -106,10 +106,10 @@ class TestCameras:
     def test_irradiancemeter_uniform_env(self):
         """Facing a unit constant environment the probe's sample mean is 1
         (E = pi with cosine-pdf importance absorbed)."""
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
-        from drmlt_mitsuba_tpu.scene.builders import furnace_sphere
-        from drmlt_mitsuba_tpu.scene.types import (
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
+        from drmlt_mitsuba.scene.builders import furnace_sphere
+        from drmlt_mitsuba.scene.types import (
             CAMERA_IRRADIANCEMETER, make_camera,
         )
 

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.core.transform import look_at
-from drmlt_mitsuba_tpu.render.sensor import sample_ray
-from drmlt_mitsuba_tpu.scene import types as st
-from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+from drmlt_mitsuba.core.transform import look_at
+from drmlt_mitsuba.render.sensor import sample_ray
+from drmlt_mitsuba.scene import types as st
+from drmlt_mitsuba.scene.xml import load_scene_xml
 
 
 def test_rdist_inversion_roundtrip():
@@ -92,8 +92,8 @@ def test_normalmap_xml_and_identity(tmp_path):
     assert int(np.asarray(scene.materials.normal_tex_id)[
         int(np.asarray(scene.tris.mat_id)[0])]) >= 0
 
-    from drmlt_mitsuba_tpu.integrators.path import apply_normal_map
-    from drmlt_mitsuba_tpu.ops.intersect import intersect
+    from drmlt_mitsuba.integrators.path import apply_normal_map
+    from drmlt_mitsuba.ops.intersect import intersect
 
     o = jnp.asarray([[0.2, 0.1, 3.0]])
     d = jnp.asarray([[0.0, 0.0, -1.0]])
@@ -122,8 +122,8 @@ def test_bumpmap_tilts_normals(tmp_path):
     scene, _ = load_scene_xml(str(f))
     assert scene.materials.has_normalmap
 
-    from drmlt_mitsuba_tpu.integrators.path import apply_normal_map
-    from drmlt_mitsuba_tpu.ops.intersect import intersect
+    from drmlt_mitsuba.integrators.path import apply_normal_map
+    from drmlt_mitsuba.ops.intersect import intersect
 
     o = jnp.asarray([[0.0, 0.0, 3.0]])
     d = jnp.asarray([[0.0, 0.0, -1.0]])

@@ -12,14 +12,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.render.subsurface import (
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.render.subsurface import (
     DipoleTable, dipole_lo, dipole_params, prepare_dipole, rd,
 )
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
-from drmlt_mitsuba_tpu.scene.types import prepare_scene
+from drmlt_mitsuba.scene.builders import cornell_box
 
 SIGMA_S = (2.19, 2.62, 3.00)   # marble (Jensen et al. 2001)
 SIGMA_A = (0.0021, 0.0041, 0.0071)
@@ -48,7 +47,7 @@ def test_uniform_plane_furnace():
     """Unit irradiance on a large densely-sampled plane: the dense query
     at the center must equal (1-Fr)/pi * int Rd dA (the furnace analog —
     checks point weights, the (R,N) reduction and the Fresnel factor)."""
-    from drmlt_mitsuba_tpu.core.math import fresnel_dielectric
+    from drmlt_mitsuba.core.math import fresnel_dielectric
 
     params = dipole_params(SIGMA_S, SIGMA_A, g=0.0, eta=1.5)
     half, n_side = 30.0, 600
@@ -76,7 +75,7 @@ def test_dipole_scene_renders():
     the render is finite, and the subsurface glow ADDS energy on the box
     relative to the same render without the table."""
     W = H = 32
-    scene = prepare_scene(cornell_box(W, H))
+    scene = cornell_box(W, H)
     tall_mat = 4   # builders.cornell_box: tall_m = 4
     # millimeter-ish coefficients on a ~550-unit box: scale down so the
     # mean free path is a visible fraction of the box
@@ -128,7 +127,7 @@ def test_xml_subsurface_parsed():
     f = tempfile.NamedTemporaryFile("w", suffix=".xml", delete=False)
     f.write(xml)
     f.close()
-    from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+    from drmlt_mitsuba.scene.xml import load_scene_xml
     try:
         scene, settings = load_scene_xml(f.name)
     finally:

@@ -3,16 +3,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from drmlt_mitsuba_tpu.integrators.drmlt import DRMLTConfig, render_drmlt
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import render_pt, trace_paths
-from drmlt_mitsuba_tpu.integrators.pssmlt import PSSMLTConfig, render_pssmlt
-from drmlt_mitsuba_tpu.integrators.twostage import (
+from drmlt_mitsuba.integrators.drmlt import DRMLTConfig, render_drmlt
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import render_pt, trace_paths
+from drmlt_mitsuba.integrators.pssmlt import PSSMLTConfig, render_pssmlt
+from drmlt_mitsuba.integrators.twostage import (
     apply_importance_to_image, luminance_pass, sample_importance,
     with_importance_map,
 )
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 def test_importance_map_lookup():

@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-from drmlt_mitsuba_tpu.integrators.path import trace_paths
-from drmlt_mitsuba_tpu.integrators.pssmlt import PSSMLTConfig, render_pssmlt
-from drmlt_mitsuba_tpu.render import film as filmlib
-from drmlt_mitsuba_tpu.render.medium import (
+from drmlt_mitsuba.integrators.layout import PathConfig
+from drmlt_mitsuba.integrators.path import trace_paths
+from drmlt_mitsuba.integrators.pssmlt import PSSMLTConfig, render_pssmlt
+from drmlt_mitsuba.render import film as filmlib
+from drmlt_mitsuba.render.medium import (
     hg_phase, make_medium, sample_distance, sample_hg, transmittance,
 )
-from drmlt_mitsuba_tpu.scene.builders import cornell_box
+from drmlt_mitsuba.scene.builders import cornell_box
 
 
 class TestMedium:
@@ -107,8 +107,8 @@ class TestHeterogeneous:
     def _grid_scene(self, density, sig=2e-3):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.render.medium import make_hetero_medium
-        from drmlt_mitsuba_tpu.scene.builders import cornell_box
+        from drmlt_mitsuba.render.medium import make_hetero_medium
+        from drmlt_mitsuba.scene.builders import cornell_box
 
         scene = cornell_box(16, 16)
         # grid spans [-900, 900]^3: covers the camera AND the box
@@ -121,7 +121,7 @@ class TestHeterogeneous:
     def test_grid_density_trilinear(self):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.render.medium import (
+        from drmlt_mitsuba.render.medium import (
             _grid_density, make_hetero_medium,
         )
 
@@ -139,7 +139,7 @@ class TestHeterogeneous:
         """Constant grid: ratio tracking must reproduce exp(-sigma d)."""
         import numpy as np
 
-        from drmlt_mitsuba_tpu.render.medium import (
+        from drmlt_mitsuba.render.medium import (
             make_hetero_medium, transmittance_hetero,
         )
 
@@ -164,10 +164,10 @@ class TestHeterogeneous:
         estimates must agree within MC error."""
         import numpy as np
 
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
-        from drmlt_mitsuba_tpu.render.medium import make_medium
-        from drmlt_mitsuba_tpu.scene.builders import cornell_box
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
+        from drmlt_mitsuba.render.medium import make_medium
+        from drmlt_mitsuba.scene.builders import cornell_box
 
         sig = 2e-3
         homo = cornell_box(16, 16).replace(
@@ -187,9 +187,9 @@ class TestHeterogeneous:
         spatially-varying grid differs from its mean-density constant."""
         import numpy as np
 
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
-        from drmlt_mitsuba_tpu.scene.builders import cornell_box
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
+        from drmlt_mitsuba.scene.builders import cornell_box
 
         cfg = PathConfig(max_depth=4, rr_depth=100)
         u = jax.random.uniform(jax.random.PRNGKey(1), (32768, cfg.n_dims))
@@ -207,13 +207,13 @@ class TestHeterogeneous:
         with plain MC on the same trace function."""
         import numpy as np
 
-        from drmlt_mitsuba_tpu.core.spectrum import luminance
-        from drmlt_mitsuba_tpu.integrators.drmlt import (
+        from drmlt_mitsuba.core.spectrum import luminance
+        from drmlt_mitsuba.integrators.drmlt import (
             DRMLTConfig, render_drmlt,
         )
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
-        from drmlt_mitsuba_tpu.render.film import make_film_config
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
+        from drmlt_mitsuba.render.film import make_film_config
 
         scene = self._grid_scene(np.ones((4, 4, 4), np.float32))
         pcfg = PathConfig(max_depth=3, rr_depth=100)
@@ -232,10 +232,10 @@ class TestHeterogeneous:
 def test_rayleigh_fog_renders():
     """Cornell fog with a Rayleigh phase renders finite and differs from
     the HG g=0 fog only through the phase lobe (same extinction)."""
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
-    from drmlt_mitsuba_tpu.render.medium import PHASE_RAYLEIGH, make_medium
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
+    from drmlt_mitsuba.integrators.layout import PathConfig
+    from drmlt_mitsuba.integrators.path import trace_paths
+    from drmlt_mitsuba.render.medium import PHASE_RAYLEIGH, make_medium
+    from drmlt_mitsuba.scene.builders import cornell_box
 
     cfg = PathConfig(max_depth=4, rr_depth=100)
     u = jax.random.uniform(jax.random.PRNGKey(4), (32768, cfg.n_dims))
@@ -257,12 +257,12 @@ def test_exotic_phases_render():
     agree closely with the plain HG medium (same estimator modulo code
     path), and microflake's directional extinction must differ from the
     HG fog's isotropic extinction."""
-    from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-    from drmlt_mitsuba_tpu.integrators.path import trace_paths
-    from drmlt_mitsuba_tpu.render.medium import (
+    from drmlt_mitsuba.integrators.layout import PathConfig
+    from drmlt_mitsuba.integrators.path import trace_paths
+    from drmlt_mitsuba.render.medium import (
         PHASE_KKAY, PHASE_MICROFLAKE, PHASE_MIXTURE, make_medium,
     )
-    from drmlt_mitsuba_tpu.scene.builders import cornell_box
+    from drmlt_mitsuba.scene.builders import cornell_box
 
     cfg = PathConfig(max_depth=4, rr_depth=100)
     u = jax.random.uniform(jax.random.PRNGKey(6), (32768, cfg.n_dims))
@@ -304,8 +304,8 @@ class TestHeteroExtensions:
     heterogeneous.cpp albedo volume / phase dispatch)."""
 
     def _grid(self, **kw):
-        from drmlt_mitsuba_tpu.render.medium import make_hetero_medium
-        from drmlt_mitsuba_tpu.scene.builders import cornell_box
+        from drmlt_mitsuba.render.medium import make_hetero_medium
+        from drmlt_mitsuba.scene.builders import cornell_box
 
         # grid spans [-900, 900]^3: covers the camera AND the box
         w2g = np.eye(4, dtype=np.float32) / 1800.0
@@ -316,8 +316,8 @@ class TestHeteroExtensions:
         return cornell_box(16, 16).replace(medium=med)
 
     def test_constant_albedo_grid_matches_scalar(self):
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
 
         cfg = PathConfig(max_depth=4, rr_depth=100)
         u = jax.random.uniform(jax.random.PRNGKey(8), (32768, cfg.n_dims))
@@ -329,8 +329,8 @@ class TestHeteroExtensions:
         np.testing.assert_allclose(l1, l0, rtol=1e-5)
 
     def test_varying_albedo_grid_between_bounds(self):
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
 
         cfg = PathConfig(max_depth=4, rr_depth=100)
         u = jax.random.uniform(jax.random.PRNGKey(9), (32768, cfg.n_dims))
@@ -346,12 +346,12 @@ class TestHeteroExtensions:
         assert lo < half < hi, (lo, half, hi)
 
     def test_rayleigh_grid_matches_homogeneous(self):
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
-        from drmlt_mitsuba_tpu.render.medium import (
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
+        from drmlt_mitsuba.render.medium import (
             PHASE_RAYLEIGH, make_medium,
         )
-        from drmlt_mitsuba_tpu.scene.builders import cornell_box
+        from drmlt_mitsuba.scene.builders import cornell_box
 
         cfg = PathConfig(max_depth=4, rr_depth=100)
         u = jax.random.uniform(jax.random.PRNGKey(10), (65536, cfg.n_dims))
@@ -364,7 +364,7 @@ class TestHeteroExtensions:
         assert abs(float(lh.mean() - lo.mean())) < 4.0 * se
 
     def test_microflake_grid_directional_transmittance(self):
-        from drmlt_mitsuba_tpu.render.medium import (
+        from drmlt_mitsuba.render.medium import (
             PHASE_MICROFLAKE, transmittance_hetero,
         )
 
@@ -392,8 +392,8 @@ class TestOrientationVolumes:
     heterogeneous.cpp 'orientation' volume)."""
 
     def _scene(self, **kw):
-        from drmlt_mitsuba_tpu.render.medium import make_hetero_medium
-        from drmlt_mitsuba_tpu.scene.builders import cornell_box
+        from drmlt_mitsuba.render.medium import make_hetero_medium
+        from drmlt_mitsuba.scene.builders import cornell_box
 
         w2g = np.eye(4, dtype=np.float32) / 1800.0
         w2g[:3, 3] = 0.5
@@ -405,7 +405,7 @@ class TestOrientationVolumes:
     def test_constant_grid_matches_constant_fiber(self):
         """An orientation grid filled with one direction must reproduce
         the constant-fiber medium exactly (same RNG stream)."""
-        from drmlt_mitsuba_tpu.render.medium import (
+        from drmlt_mitsuba.render.medium import (
             PHASE_MICROFLAKE, transmittance_hetero,
         )
 
@@ -427,7 +427,7 @@ class TestOrientationVolumes:
     def test_varying_orientation_changes_extinction(self):
         """Fibers along +z on one side, along +x on the other: a +z ray
         sees far less extinction where it travels along the fibers."""
-        from drmlt_mitsuba_tpu.render.medium import (
+        from drmlt_mitsuba.render.medium import (
             PHASE_MICROFLAKE, transmittance_hetero,
         )
 
@@ -452,7 +452,7 @@ class TestOrientationVolumes:
         assert t_l > t_r + 0.2, (t_l, t_r)
 
     def test_xml_orientation_gridvolume(self, tmp_path):
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml, write_vol
+        from drmlt_mitsuba.scene.xml import load_scene_xml, write_vol
 
         dpath = tmp_path / "d.vol"
         write_vol(str(dpath), np.ones((2, 2, 2), np.float32),

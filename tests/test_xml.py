@@ -5,9 +5,9 @@ import jax
 import numpy as np
 import pytest
 
-from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
-from drmlt_mitsuba_tpu.scene import mesh_io
-from drmlt_mitsuba_tpu.utils.exr import read_exr, write_exr
+from drmlt_mitsuba.scene.xml import load_scene_xml
+from drmlt_mitsuba.scene import mesh_io
+from drmlt_mitsuba.utils.exr import read_exr, write_exr
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -41,8 +41,8 @@ class TestXml:
 
     def test_renders(self):
         """The loaded scene actually renders with the path tracer."""
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import trace_paths
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import trace_paths
         import jax.numpy as jnp
 
         scene, _ = load_scene_xml(os.path.join(DATA, "cornell.xml"),
@@ -135,7 +135,7 @@ class TestMediumXml:
     def test_vol_roundtrip(self, tmp_path):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.scene.xml import read_vol, write_vol
+        from drmlt_mitsuba.scene.xml import read_vol, write_vol
 
         dens = np.random.RandomState(0).rand(4, 5, 6).astype(np.float32)
         p = str(tmp_path / "d.vol")
@@ -148,8 +148,8 @@ class TestMediumXml:
     def test_heterogeneous_medium_loads(self, tmp_path):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.render.medium import HeterogeneousMedium
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml, write_vol
+        from drmlt_mitsuba.render.medium import HeterogeneousMedium
+        from drmlt_mitsuba.scene.xml import load_scene_xml, write_vol
 
         dens = np.random.RandomState(1).rand(8, 8, 8).astype(np.float32)
         write_vol(str(tmp_path / "smoke.vol"), dens, [-1, -1, -1], [1, 1, 1])
@@ -174,8 +174,8 @@ class TestMediumXml:
     def test_homogeneous_medium_sigma_s_a(self, tmp_path):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.render.medium import HomogeneousMedium
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+        from drmlt_mitsuba.render.medium import HomogeneousMedium
+        from drmlt_mitsuba.scene.xml import load_scene_xml
 
         (tmp_path / "h.xml").write_text("""<scene version="0.6.0">
   <sensor type="perspective"><float name="fov" value="45"/>
@@ -199,7 +199,7 @@ class TestSunsky:
     def test_bake_physical_behavior(self):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.scene.sunsky import bake_sky
+        from drmlt_mitsuba.scene.sunsky import bake_sky
 
         sd = np.array([0.3, 0.8, 0.5])
         sd /= np.linalg.norm(sd)
@@ -220,7 +220,7 @@ class TestSunsky:
         resolution (disk-resolved or not)."""
         import numpy as np
 
-        from drmlt_mitsuba_tpu.scene.sunsky import bake_sky
+        from drmlt_mitsuba.scene.sunsky import bake_sky
 
         sd = np.array([0.2, 0.9, 0.4])
         sd /= np.linalg.norm(sd)
@@ -238,7 +238,7 @@ class TestSunsky:
     def test_sunsky_xml_loads_as_envmap(self, tmp_path):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+        from drmlt_mitsuba.scene.xml import load_scene_xml
 
         (tmp_path / "s.xml").write_text("""<scene version="0.6.0">
   <sensor type="perspective"><float name="fov" value="45"/>
@@ -258,7 +258,7 @@ class TestSunsky:
     def test_sun_position_algorithm(self):
         import numpy as np
 
-        from drmlt_mitsuba_tpu.scene.sunsky import sun_direction_from_time
+        from drmlt_mitsuba.scene.sunsky import sun_direction_from_time
 
         hi = sun_direction_from_time(month=6, day=21, hour=12.0,
                                      latitude=35.0, longitude=135.0,
@@ -282,7 +282,7 @@ class TestVertexColors:
 
         import numpy as np
 
-        from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+        from drmlt_mitsuba.scene.xml import load_scene_xml
         ply = tempfile.NamedTemporaryFile("w", suffix=".ply", delete=False)
         ply.write("ply\nformat ascii 1.0\n"
                   "element vertex 4\n"
@@ -343,13 +343,12 @@ class TestVertexColors:
         import jax
         import numpy as np
 
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import render_pt
-        from drmlt_mitsuba_tpu.render import film as filmlib
-        from drmlt_mitsuba_tpu.scene.types import prepare_scene
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import render_pt
+        from drmlt_mitsuba.render import film as filmlib
         import jax.numpy as jnp
 
-        vc = prepare_scene(self._scene([(178, 178, 178)] * 4))
+        vc = self._scene([(178, 178, 178)] * 4)
         const = vc.replace(
             vcolors=None,
             materials=vc.materials.replace(
@@ -371,13 +370,12 @@ class TestVertexColors:
         import jax
         import numpy as np
 
-        from drmlt_mitsuba_tpu.integrators.layout import PathConfig
-        from drmlt_mitsuba_tpu.integrators.path import render_pt
-        from drmlt_mitsuba_tpu.render import film as filmlib
-        from drmlt_mitsuba_tpu.scene.types import prepare_scene
+        from drmlt_mitsuba.integrators.layout import PathConfig
+        from drmlt_mitsuba.integrators.path import render_pt
+        from drmlt_mitsuba.render import film as filmlib
 
-        scene = prepare_scene(self._scene(
-            [(255, 0, 0), (0, 0, 255), (0, 0, 255), (255, 0, 0)]))
+        scene = self._scene(
+            [(255, 0, 0), (0, 0, 255), (0, 0, 255), (255, 0, 0)])
         cfg = PathConfig(max_depth=2, rr_depth=100)
         fc = filmlib.make_film_config(16, 16, "box")
         film = render_pt(scene, cfg, jax.random.PRNGKey(0), 16 * 16 * 32,
@@ -405,8 +403,7 @@ def test_reference_dialect_scenes_load():
     import glob
     import warnings as _w
 
-    from drmlt_mitsuba_tpu.scene.types import prepare_scene
-    from drmlt_mitsuba_tpu.scene.xml import load_scene_xml
+    from drmlt_mitsuba.scene.xml import load_scene_xml
 
     paths = sorted(glob.glob(os.path.join(REF_TESTS, "*.xml")))
     assert paths, "no reference scenes found"
@@ -414,5 +411,4 @@ def test_reference_dialect_scenes_load():
         with _w.catch_warnings():
             _w.simplefilter("ignore")
             scene, settings = load_scene_xml(p)
-            scene = prepare_scene(scene)
         assert scene.tris.v0.shape[0] >= 1, p
